@@ -1,10 +1,10 @@
-"""bayesssm_tpu — TPU-native Particle Marginal Metropolis-Hastings.
+"""bayesssm_tpu — Particle Marginal Metropolis-Hastings in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the R package
 ``BjarkeHautop/bayesSSM`` (reference layout documented in SURVEY.md):
 Bayesian inference for state-space models via particle filters (bootstrap,
 auxiliary, resample-move) and PMMH with pilot-run tuning, running thousands
-of chains in parallel on TPU meshes.
+of chains in parallel on one accelerator or a device mesh.
 
 Public surface mirrors the reference's exported NAMESPACE
 (/root/reference/NAMESPACE:3-11): pmmh, bootstrap_filter, auxiliary_filter,

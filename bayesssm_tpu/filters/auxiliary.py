@@ -30,7 +30,6 @@ def auxiliary_filter(
     return_particles: bool = True,
     max_particles=None,
     carry_weights: bool = False,
-    use_fused: str | bool = "auto",
 ):
     """Run an auxiliary particle filter; returns a ``FilterResult``."""
     return particle_filter_core(
@@ -50,5 +49,4 @@ def auxiliary_filter(
         return_particles=return_particles,
         max_particles=max_particles,
         carry_weights=carry_weights,
-        use_fused=use_fused,
     )

@@ -28,7 +28,6 @@ def bootstrap_filter(
     return_particles: bool = True,
     max_particles=None,
     carry_weights: bool = False,
-    use_fused: str | bool = "auto",
 ):
     """Run a bootstrap particle filter; returns a ``FilterResult``."""
     return particle_filter_core(
@@ -47,5 +46,4 @@ def bootstrap_filter(
         return_particles=return_particles,
         max_particles=max_particles,
         carry_weights=carry_weights,
-        use_fused=use_fused,
     )

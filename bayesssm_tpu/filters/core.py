@@ -1,6 +1,6 @@
 """The single SMC engine shared by all particle filters.
 
-TPU-native re-design of /root/reference/R/particle_filter_core.R:19-267.
+Re-design of /root/reference/R/particle_filter_core.R:19-267 for JAX.
 The reference's per-observation ``for`` loop becomes a ``lax.scan``; its
 data-dependent branches (adaptive resampling, degenerate-weight early exit)
 become branchless ``where``/``select`` so one compiled program serves every
@@ -81,7 +81,6 @@ class FilterConfig:
     return_particles: bool = True
     max_particles: Optional[int] = None
     carry_weights: bool = False
-    use_fused: str | bool = "auto"
     particle_axis: Optional[str] = None
     particle_axis_size: int = 1
 
@@ -166,7 +165,7 @@ def _resolve_obs_times(obs_times, num_obs: int) -> np.ndarray:
 def obs_times_to_gaps(obs_times, num_obs: int) -> tuple:
     """Static per-observation transition counts from observation times
     (validated with the reference contract): ``gaps[i] = ot[i] - ot[i-1]``
-    with an implicit ``ot[-1] = 0`` — the fused sweep builder's compiled
+    with an implicit ``ot[-1] = 0`` — the whole-sweep kernel's compiled
     form of the gap-propagation loop
     (/root/reference/R/particle_filter_core.R:122-137)."""
     ot = _resolve_obs_times(obs_times, num_obs)
@@ -191,7 +190,6 @@ def particle_filter_core(
     return_particles: bool = True,
     max_particles: Optional[int] = None,
     carry_weights: bool = False,
-    use_fused: str | bool = "auto",
     particle_axis: Optional[str] = None,
     particle_axis_size: int = 1,
     config: Optional["FilterConfig"] = None,
@@ -218,14 +216,6 @@ def particle_filter_core(
       return_particles: include particle/weight histories in the result.
       max_particles: static lane count when ``num_particles`` is traced.
       carry_weights: textbook weight accumulation (see module docstring).
-      use_fused: fused Pallas weight+resample path. ``"auto"`` enables it on
-        TPU when the lane count is 128-aligned, with stratum positions
-        drawn IN-KERNEL from the on-chip PRNG (fastest; resampling
-        bit-stream differs from the portable path, distribution identical);
-        ``True`` forces the fused path with host-drawn positions (same
-        stream as the portable path); ``False`` disables;
-        ``"interpret"``/``"interpret-inkernel"`` force the respective fused
-        modes through the Pallas interpreter so they run on CPU in CI.
       particle_axis: optional mesh axis name the PARTICLE dimension is
         sharded over. The core must then run inside ``shard_map``;
         ``num_particles``/``max_particles`` stay GLOBAL counts while every
@@ -244,7 +234,7 @@ def particle_filter_core(
         inside the trace).
       config: optional ``FilterConfig``; when given it supplies every
         filter-shape option above (algorithm, resample_*, threshold,
-        return_particles, max_particles, carry_weights, use_fused,
+        return_particles, max_particles, carry_weights,
         particle_axis*) and the corresponding keyword arguments are ignored.
     """
     if config is not None:
@@ -256,7 +246,6 @@ def particle_filter_core(
         return_particles = cfg["return_particles"]
         max_particles = cfg["max_particles"]
         carry_weights = cfg["carry_weights"]
-        use_fused = cfg["use_fused"]
         particle_axis = cfg["particle_axis"]
         particle_axis_size = cfg["particle_axis_size"]
     if algorithm not in ALGORITHMS:
@@ -371,59 +360,6 @@ def particle_filter_core(
 
     uniform_w = jnp.where(alive, 1.0 / n_f, 0.0).astype(dtype)
 
-    # Fused Pallas weight+resample path (TPU): one VMEM kernel replaces
-    # normalize + ESS + cumsum + searchsorted + gather. Gated statically;
-    # SIS never resamples so the portable (cheap) path suffices there.
-    # Position modes: "auto" (and "interpret-inkernel") draw the stratum
-    # positions IN-KERNEL from the on-chip PRNG — no per-step host
-    # threefry, no positions operand; True/"interpret" keep the host-drawn
-    # positions so the fused path consumes the exact same stream as the
-    # portable path (the strict same-key parity mode the fused-vs-portable
-    # tests pin).
-    from bayesssm_tpu.ops.resampling_pallas import (
-        MAX_FUSED_LANES,
-        fused_weight_resample,
-        fused_weight_resample_seeded,
-        pallas_available,
-    )
-
-    fused_interpret = use_fused in ("interpret", "interpret-inkernel")
-    inkernel_rng = use_fused in ("auto", "interpret-inkernel")
-    if use_fused == "auto":
-        fused_enabled = (
-            pallas_available()
-            and n_static % 128 == 0
-            and n_static <= MAX_FUSED_LANES
-            and resample_algorithm != "SIS"
-            and resample_fn != "metropolis"
-            and dtype == jnp.float32
-        )
-    elif use_fused == "interpret-inkernel":
-        fused_enabled = True
-    else:
-        fused_enabled = bool(use_fused)
-    if fused_enabled and resample_fn == "metropolis":
-        raise ValueError(
-            "the fused Pallas path implements inverse-CDF selection only; "
-            "use_fused must be False/'auto' with resample_fn='metropolis'"
-        )
-    # Selection algorithm for the fused kernels: the O(N log N) merge
-    # network needs SORTED positions AND a power-of-two lane count (its
-    # XOR partner network is meaningless for composite N — see
-    # ops/merge_select.py contract); multinomial and non-pow2 N keep the
-    # quadratic masked-reduce (measured in scripts/particle_regime.py).
-    fused_selection = (
-        "merge"
-        if (
-            resample_fn in ("stratified", "systematic")
-            and n_static & (n_static - 1) == 0
-        )
-        else "quadratic"
-    )
-    if sharded:
-        # The fused kernel is single-shard (its CDF/selection is local);
-        # the sharded weight step runs the collective portable path.
-        fused_enabled = False
     always_resample = algorithm == "RMPF" or resample_algorithm == "SISR"
 
     canon_in_scan = canon
@@ -480,47 +416,13 @@ def particle_filter_core(
             # Degenerate AUX weights kill the chain like degenerate main
             # weights: the reference's sample() errors on all-zero
             # auxiliary probabilities; mapping it to the same -inf
-            # contract keeps PMMH safe. (Without this, the fused path's
-            # -1e30 clamp cancels in ``lw - aux_anc`` and a dead proposal
-            # would surface a spuriously huge log-likelihood.)
+            # contract keeps PMMH safe.
             aux_max = jnp.max(aux_lw)
             if sharded:
                 aux_max = lax.pmax(aux_max, particle_axis)
             dead = jnp.logical_or(dead, aux_max < DEGENERATE_LOG_WEIGHT)
             aux_base = aux_lw + lnw_prev if carry_weights else aux_lw
-            if fused_enabled:
-                # Fused auxiliary resample: append the aux log-weights as an
-                # extra state column so the MXU gather carries them to the
-                # selected ancestors (the kernel returns particles only, not
-                # indices). -inf is clamped; masked lanes are never chosen.
-                one_dim_p = particles.ndim == 1
-                p2d = particles[:, None] if one_dim_p else particles
-                aux_col = jnp.maximum(aux_lw, jnp.asarray(-1e30, dtype))
-                p_ext = jnp.concatenate([p2d, aux_col[:, None]], axis=-1)
-                safe_aux = jnp.maximum(aux_base, jnp.asarray(-1e30, dtype))
-                if inkernel_rng:
-                    p_ext, _, _, _ = fused_weight_resample_seeded(
-                        safe_aux, p_ext, k_aux,
-                        jnp.asarray(num_particles, dtype), uniform_w,
-                        jnp.asarray(0.0, dtype), method=resample_fn,
-                        always_resample=True, interpret=fused_interpret,
-                    )
-                else:
-                    from bayesssm_tpu.ops.resampling import _positions
-
-                    pos_aux = _positions(
-                        k_aux, resample_fn, (), n_static,
-                        jnp.asarray(num_particles, dtype), dtype,
-                    )
-                    p_ext, _, _, _ = fused_weight_resample(
-                        safe_aux, p_ext, pos_aux, uniform_w,
-                        jnp.asarray(0.0, dtype), always_resample=True,
-                        interpret=fused_interpret,
-                        selection=fused_selection,
-                    )
-                aux_anc = p_ext[:, -1]
-                particles = p_ext[:, 0] if one_dim_p else p_ext[:, :-1]
-            elif sharded:
+            if sharded:
                 aux_weights, _, _ = normalize_log_weights(
                     aux_base, axis_name=particle_axis
                 )
@@ -566,77 +468,43 @@ def particle_filter_core(
         else:
             combined = lw
 
-        if fused_enabled:
-            # --- fused Pallas path: normalize + ESS + resample on-chip ---
-            p2d = particles if particles.ndim == 2 else particles[:, None]
-            # Clamp -inf so fully-degenerate slices stay NaN-free (dead
-            # chains are zeroed below either way).
-            safe_comb = jnp.maximum(combined, jnp.asarray(-1e30, dtype))
-            thr_arg = thr if thr is not None else jnp.asarray(0.0, dtype)
-            if inkernel_rng:
-                pout, weights, ess, lse = fused_weight_resample_seeded(
-                    safe_comb, p2d, k_res,
-                    jnp.asarray(num_particles, dtype), uniform_w, thr_arg,
-                    method=resample_fn, always_resample=always_resample,
-                    interpret=fused_interpret,
-                )
-            else:
-                from bayesssm_tpu.ops.resampling import _positions
+        # --- normalise, likelihood increment, ESS, resample (:204-224);
+        # collective when sharded ---
+        weights, lse, mx = normalize_log_weights(
+            combined, axis_name=particle_axis
+        )
+        incr = (mx + lse) if carry_weights else (mx + lse - jnp.log(n_f))
+        loglike = jnp.where(dead, neg_inf, loglike + incr)
 
-                pos = _positions(
-                    k_res, resample_fn, (), n_static,
-                    jnp.asarray(num_particles, dtype), dtype,
+        ess = effective_sample_size(weights, axis_name=particle_axis)
+        if always_resample:
+            should = None  # statically always resample
+        elif resample_algorithm == "SIS":
+            should = False
+        else:
+            should = ess < thr
+
+        if should is not False:
+            if sharded:
+                idx = sharded_resample_indices(
+                    k_res, weights, resample_fn, particle_axis, n_f
                 )
-                pout, weights, ess, lse = fused_weight_resample(
-                    safe_comb, p2d, pos, uniform_w, thr_arg,
-                    always_resample=always_resample,
-                    interpret=fused_interpret,
-                    selection=fused_selection,
+                resampled = sharded_gather(particles, idx, particle_axis)
+            else:
+                idx = resample_indices(
+                    k_res, weights, method=resample_fn, num_alive=n_f
                 )
-            particles = pout if particles.ndim == 2 else pout[:, 0]
-            incr = lse if carry_weights else lse - jnp.log(n_f)
-            loglike = jnp.where(dead, neg_inf, loglike + incr)
-            if always_resample:
+                resampled = gather_particles(particles, idx)
+            if should is None:
+                particles = resampled
+                weights = uniform_w
                 ess_rec = n_f
             else:
-                ess_rec = jnp.where(ess < thr, n_f, ess)
+                particles = jnp.where(should, resampled, particles)
+                weights = jnp.where(should, uniform_w, weights)
+                ess_rec = jnp.where(should, n_f, ess)
         else:
-            # --- portable path (:204-224); collective when sharded ---
-            weights, lse, mx = normalize_log_weights(
-                combined, axis_name=particle_axis
-            )
-            incr = (mx + lse) if carry_weights else (mx + lse - jnp.log(n_f))
-            loglike = jnp.where(dead, neg_inf, loglike + incr)
-
-            ess = effective_sample_size(weights, axis_name=particle_axis)
-            if always_resample:
-                should = None  # statically always resample
-            elif resample_algorithm == "SIS":
-                should = False
-            else:
-                should = ess < thr
-
-            if should is not False:
-                if sharded:
-                    idx = sharded_resample_indices(
-                        k_res, weights, resample_fn, particle_axis, n_f
-                    )
-                    resampled = sharded_gather(particles, idx, particle_axis)
-                else:
-                    idx = resample_indices(
-                        k_res, weights, method=resample_fn, num_alive=n_f
-                    )
-                    resampled = gather_particles(particles, idx)
-                if should is None:
-                    particles = resampled
-                    weights = uniform_w
-                    ess_rec = n_f
-                else:
-                    particles = jnp.where(should, resampled, particles)
-                    weights = jnp.where(should, uniform_w, weights)
-                    ess_rec = jnp.where(should, n_f, ess)
-            else:
-                ess_rec = ess
+            ess_rec = ess
 
         # --- RMPF rejuvenation move, vectorized over particles (:226-234) ---
         if algorithm == "RMPF":
@@ -653,7 +521,11 @@ def particle_filter_core(
         pos = weights > 0
         lnw_new = jnp.where(pos, jnp.log(jnp.where(pos, weights, 1.0)), neg_inf)
 
-        state_est = jnp.einsum("n,n...->...", weights, particles)
+        # A float32 product on the GPU may run in TF32 (about three
+        # decimal digits); the state estimate is a reported result.
+        state_est = jnp.einsum(
+            "n,n...->...", weights, particles, precision="highest"
+        )
         if sharded:
             state_est = lax.psum(state_est, particle_axis)
 
@@ -683,7 +555,9 @@ def particle_filter_core(
         particles_seq = weights_seq = None
 
     # t = 0 entries (:105-116): uniform weights, ESS = n, weighted-mean state.
-    state0 = jnp.einsum("n,n...->...", uniform_w, particles0)
+    state0 = jnp.einsum(
+        "n,n...->...", uniform_w, particles0, precision="highest"
+    )
     if sharded:
         state0 = lax.psum(state0, particle_axis)
     state_est = jnp.concatenate([state0[None], state_seq], axis=0)

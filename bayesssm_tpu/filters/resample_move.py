@@ -4,8 +4,8 @@ Public adapter mirroring /root/reference/R/resample_move_filter.R:190-236:
 resampling is forced to every step (SISR) and an MCMC rejuvenation
 ``move_fn`` runs after each resample. Unlike the reference's per-particle R
 loop (/root/reference/R/particle_filter_core.R:228-233), ``move_fn`` here is
-vectorized over the whole ``[num_particles, d]`` block — the natural TPU
-formulation.
+vectorized over the whole ``[num_particles, d]`` block — the natural
+formulation for an accelerator.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ def resample_move_filter(
     return_particles: bool = True,
     max_particles=None,
     carry_weights: bool = False,
-    use_fused: str | bool = "auto",
 ):
     """Run a resample-move particle filter; returns a ``FilterResult``.
 
@@ -53,5 +52,4 @@ def resample_move_filter(
         return_particles=return_particles,
         max_particles=max_particles,
         carry_weights=carry_weights,
-        use_fused=use_fused,
     )

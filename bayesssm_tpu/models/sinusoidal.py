@@ -56,9 +56,9 @@ def sinusoidal_sweep_pf_impl(interpret: bool = False):
     """Whole-sweep ``pf_impl`` for the README model — a builder instance.
 
     The reference's flagship example (/root/reference/README.md:100-211,
-    BASELINE.json config 1) on the fused fast path: one state column,
-    Box-Muller normals from the on-chip PRNG (Mosaic sin/cos are
-    hardware-assisted), Gaussian log-weights, merge-selection resample.
+    BASELINE.json config 1) on the whole-sweep kernel: one state column,
+    Box-Muller normals from the in-kernel stream, Gaussian log-weights,
+    inverse-CDF resample.
     Usage: ``pmmh(..., pf_impl=sinusoidal_sweep_pf_impl())``. Sampling
     distribution matches the portable ``sinusoidal_model()`` filters
     (bit-streams differ; parity is distributional).

@@ -57,15 +57,10 @@ def gillespie_step(key, state, lam, gamma, n_total, t_end=1.0, unroll=4):
     t = jnp.zeros_like(s)
     active = i > 0
 
-    # The event loop burns millions of uniforms; threefry bit generation
-    # dominates its cost on TPU. Re-key the loop's stream onto the
-    # hardware-accelerated RBG generator (seeded from the caller's key, so
-    # determinism per key is preserved).
-    kd = jnp.ravel(jax.random.key_data(key)).astype(jnp.uint32)
-    reps = -(-4 // kd.shape[0])
-    key = jax.random.wrap_key_data(
-        jnp.tile(kd, reps)[:4], impl="rbg"
-    )
+    # The loop draws from the caller's key as it is (threefry on the
+    # default key type): threefry is fused integer arithmetic on the GPU,
+    # and re-keying the loop onto impl="rbg" measured about twice as slow
+    # in this loop on an H100 (PERF.md).
 
     def cond(carry):
         _, _, _, _, active, steps = carry
@@ -110,8 +105,7 @@ def tau_leap_step(key, state, lam, gamma, n_total, substeps: int = 10):
     interval is divided into ``substeps`` leaps; infections per leap are
     Binomial(S, 1 - exp(-lam I / n dt)) and removals Binomial(I,
     1 - exp(-gamma dt)). No data-dependent loop, so all lanes cost the
-    same — several times faster than the exact simulator on TPU at the
-    price of a discretization bias that vanishes as substeps grows.
+    same, at the price of a discretization bias that vanishes as substeps grows.
     """
     dt = 1.0 / substeps
 
@@ -136,7 +130,6 @@ def sir_model(
     init_infected: int = 70,
     transition: str = "gillespie",
     substeps: int = 10,
-    pallas_interpret: bool = False,
 ):
     """Return (model_fns, log_priors, param_transform) for the SIR model.
 
@@ -147,16 +140,12 @@ def sir_model(
 
     ``transition`` selects the day-step simulator:
       * ``"gillespie"`` — exact jump process as a masked XLA ``while_loop``.
-      * ``"gillespie_pallas"`` — the same exact process as a VMEM-resident
-        Pallas kernel (ops/gillespie_pallas.py): per-block termination and
-        hardware PRNG make it the fast path on TPU. ``pallas_interpret``
-        routes it through the Pallas interpreter for CPU testing.
+        The whole-sweep kernel (``sir_sweep_pf_impl``) runs the same
+        process with per-chain termination.
       * ``"tauleap"`` — approximate binomial tau-leaping (fixed cost).
     """
-    if transition not in ("gillespie", "gillespie_pallas", "tauleap"):
-        raise ValueError(
-            "transition must be 'gillespie', 'gillespie_pallas' or 'tauleap'"
-        )
+    if transition not in ("gillespie", "tauleap"):
+        raise ValueError("transition must be 'gillespie' or 'tauleap'")
     s0 = float(n_total - init_infected)
     i0 = float(init_infected)
 
@@ -168,14 +157,6 @@ def sir_model(
     if transition == "gillespie":
         def transition_fn(key, particles, lam, gamma):
             return gillespie_step(key, particles, lam, gamma, float(n_total))
-    elif transition == "gillespie_pallas":
-        from bayesssm_tpu.ops.gillespie_pallas import gillespie_step_pallas
-
-        def transition_fn(key, particles, lam, gamma):
-            return gillespie_step_pallas(
-                key, particles, lam, gamma, float(n_total),
-                interpret=pallas_interpret,
-            )
     else:
         def transition_fn(key, particles, lam, gamma):
             return tau_leap_step(
@@ -201,8 +182,8 @@ def sir_builder_pf_impl(
     interpret: bool = False,
     pack: bool = True,
 ):
-    """PMMH ``pf_impl`` factory routing the SIR filter through the fused
-    whole-sweep path — a sweep-builder instance over
+    """PMMH ``pf_impl`` factory routing the SIR filter through the
+    whole-sweep kernel — a sweep-builder instance over
     ``ops/sir_sweep_pallas.py::sir_sweep_parts`` (exact Gillespie day in
     a callback while_loop, Poisson weights with a precomputed
     ``lgamma(y+1)`` observation column, packed (S, I) selection, APF
@@ -210,7 +191,7 @@ def sir_builder_pf_impl(
 
     Usage: ``pmmh(..., pf_impl=sir_builder_pf_impl(500, 70))``. Shares
     ``pmmh.tuning._make_pf_loglike``'s signature so the driver can swap
-    it in for BOTH the pilot-tuning and sampling phases — the TPU-native
+    it in for BOTH the pilot-tuning and sampling phases — the
     analogue of the reference's Rcpp escape hatch
     (/root/reference/vignettes/articles/detailed-overview.Rmd:401-470).
     Supports BPF, APF, RMPF with fresh-weight SISR/SISAR,
@@ -237,10 +218,7 @@ def sir_builder_pf_impl(
     )
 
 
-# The bespoke whole-sweep kernel this factory originally wrapped was
-# consolidated onto the sweep builder in round 5 at measured parity
-# (ops/sir_sweep_pallas.py module docstring); both names now build the
-# same builder-backed pf_impl.
+# Both names build the same builder-backed pf_impl.
 sir_sweep_pf_impl = sir_builder_pf_impl
 
 

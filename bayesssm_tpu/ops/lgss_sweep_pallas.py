@@ -1,28 +1,20 @@
 """Whole-sweep kernel for the linear-Gaussian SSM — a builder instance.
 
-Second instance of the whole-sweep `pf_impl` pattern
-(ops/sir_sweep_pallas.py is the bespoke first; this one is assembled by
-the GENERIC builder, ops/sweep_builder.py, from three small callbacks).
-The ENTIRE T-observation bootstrap filter runs in ONE kernel — state
-resident in VMEM, Box-Muller normals from the on-chip PRNG, Gaussian
-log-weights, and the O(N log N) merge-selection resample per
-observation. Because the LGSS has an EXACT Kalman ground truth
-(utils/kalman.py), it anchors the builder's whole-sweep scaffold to an
-analytic log-marginal likelihood on device
-(tests/test_tpu_hardware.py::test_lgss_sweep_kalman_anchor_on_device).
+The ENTIRE T-observation bootstrap filter in ONE Triton kernel
+(ops/sweep_builder.py) from three small callbacks: Box-Muller normals
+from the in-kernel stream, Gaussian log-weights, and the inverse-CDF
+resample per observation. Because the LGSS has an EXACT Kalman ground
+truth (utils/kalman.py), it anchors the builder's scaffold to an
+analytic log-marginal likelihood (tests/test_lgss_sweep.py in interpret
+mode, tests/test_sweep_kernel.py compiled on the card).
 
 Model (models/lgss.py, /root/reference vignette's AR(1) family):
     x_0 ~ N(0, p0^2),  x_t = a x_{t-1} + sigma_x eps_t,
     y_t ~ N(c x_t, sigma_y^2).
 
-Unlike the SIR kernel there is no packing: the state is ONE float lane
-and the merge network copies arbitrary f32 values exactly, so the raw
-particle column rides the selection directly. Selection is merge-only
-(stratified/systematic); multinomial positions are unsorted and raise.
-
-Measured (one v5e chip, 512 chains x 1024 particles x T=20, SISR):
-30.3 ms per batched call vs 33.7 ms for the per-day fused pair and the
-1318 ms portable row (BENCH_CONFIGS.json "lgss_whole_sweep").
+The state is ONE float column and the resample copies values exactly,
+so there is no packing. Selection needs sorted positions
+(stratified/systematic); multinomial raises.
 """
 
 from __future__ import annotations
@@ -80,21 +72,21 @@ def lgss_bpf_sweep(
     threshold=None,
     interpret: bool = False,
 ):
-    """Full LGSS bootstrap-filter sweep in one fused TPU kernel.
+    """Full LGSS bootstrap-filter sweep in one Triton kernel.
 
     Same contract shape as ``sir_bpf_sweep``: returns
     ``(loglike, state_est [T+1])`` distribution-identical to
     ``bootstrap_filter`` over ``lgss_model(c, p0)`` (bit-streams differ;
     the log-marginal likelihood is Kalman-anchored in
-    tests/test_lgss_sweep.py). Selection is merge-only, so
-    ``resample_fn`` must be stratified or systematic.
+    tests/test_lgss_sweep.py). ``resample_fn`` must be stratified or
+    systematic.
     """
     if resample_algorithm not in ("SIS", "SISR", "SISAR"):
         raise ValueError("lgss_bpf_sweep supports SIS, SISR or SISAR")
     if resample_fn not in ("stratified", "systematic"):
         raise ValueError(
-            "lgss_bpf_sweep resamples through the merge network and "
-            "requires sorted positions (stratified/systematic)"
+            "lgss_bpf_sweep resamples by a search over sorted positions "
+            "(stratified/systematic)"
         )
     op = _lgss_op(
         float(c), float(p0), resample_fn,
@@ -127,7 +119,7 @@ def _lgss_mv_op(c1: float, c2: float, p0: float, resample_fn: str,
 
     def lw(cols, theta, y_t):
         sy1, sy2 = theta[2], theta[3]
-        y1, y2 = y_t                       # [T, 2] rows as SMEM scalars
+        y1, y2 = y_t                       # one [T, 2] row as scalars
         r1 = (y1 - c1f * cols[0]) / sy1
         r2 = (y2 - c2f * cols[0]) / sy2
         return (
@@ -161,12 +153,11 @@ def lgss_mv_bpf_sweep(
     """Vector-observation LGSS whole sweep (scalar state, d_y = 2).
 
     Exercises the builder's multivariate observation rows
-    (``num_obs_cols=2``: each day reads ``y[t, :]`` as SMEM scalars,
+    (``num_obs_cols=2``: each day reads ``y[t, :]`` as scalars,
     /root/reference/R/particle_filter_core.R:176-183) and, when
     ``obs_times`` is given, the in-kernel gap-propagation loop
     (:122-137). Kalman-anchored against
-    ``utils/kalman.py::kalman_loglik_mv`` (tests/test_lgss_sweep.py;
-    on device in tests/test_tpu_hardware.py).
+    ``utils/kalman.py::kalman_loglik_mv`` (tests/test_lgss_sweep.py).
 
     Model: ``x_0 ~ N(0, p0^2)``, ``x_t = a x_{t-1} + N(0, sigma_x^2)``,
     ``y_t = c_vec x_t + N(0, diag(sigma_y_vec^2))``.

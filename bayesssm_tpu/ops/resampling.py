@@ -1,6 +1,6 @@
 """Vectorized resampling kernels.
 
-TPU-native replacement for the reference's native resampling layer
+Vectorized replacement for the reference's native resampling layer
 (/root/reference/src/resampling.cpp:5-66 and the R dispatch wrappers in
 /root/reference/R/resampling.R:13-69). The reference draws ancestor indices
 with a serial inverse-CDF walk in C++; here the same three schemes
@@ -88,7 +88,7 @@ def metropolis_resample_indices(
     Not part of the reference's surface (it ships only multinomial/
     stratified/systematic); reachable through every filter as
     ``resample_fn="metropolis"`` (portable and particle-sharded paths;
-    the fused Pallas kernels keep their inverse-CDF selection).
+    the whole-sweep kernel keeps its inverse-CDF selection).
 
     ``num_alive`` restricts proposals to the first ``num_alive`` lanes
     (masked-lane semantics, SURVEY.md Q9). ``num_out`` sets the number of
@@ -301,8 +301,8 @@ def sharded_gather(
     ``x_local``: ``[n_local]`` or ``[n_local, d]`` shard slice;
     ``idx_global``: ``[n_local]`` global indices from
     ``sharded_resample_indices``. One ``all_gather`` materializes the
-    global array (particle counts here are small relative to VMEM/HBM;
-    the win from sharding is the model's transition cost, not the gather).
+    global array (particle counts here are small relative to device
+    memory; the win from sharding is the model's transition cost, not the gather).
     """
     from jax import lax
 

@@ -1,46 +1,28 @@
 """Whole-sweep SIR filter — a sweep-builder instance (BPF/APF/RMPF).
 
-Through round 4 this module was a bespoke 785-line Pallas kernel: the
-ENTIRE T-observation SIR particle filter in one ``pallas_call`` (state
-resident in VMEM, on-chip PRNG, exact Gillespie day ``while_loop``,
-Poisson weights with host-precomputed ``lgamma(y+1)``, packed (S, I)
-selection) — the repo's headline benchmark path, 488k samples/s at
-[4096 chains x 128 particles x T=10]. Round 5 re-expressed it through
-the GENERIC whole-sweep builder (ops/sweep_builder.py), whose day-loop
-scaffolding is model-independent, and measured the abstraction cost at
-the benchmark shape (scripts/bench_sir_builder.py, one v5e chip):
-
-    BPF   bespoke 495.8k  builder 494.2k   (99.7%)
-    APF   bespoke 411.9k  builder 413.0k  (100.3%)
-    RMPF  bespoke 522.9k  builder 515.2k   (98.5%)
-
-With the scaffold cost at parity, the bespoke kernel was deleted: this
-module now holds only the SIR-specific callbacks (:func:`sir_sweep_parts`)
-and the public entry points with their original signatures. Every
-scaffold concern — merge-selection resample, masked lanes (Q9),
-degenerate -inf contract, APF aux recompute + Q2 double transition
+The ENTIRE T-observation SIR particle filter in one Triton kernel
+(ops/sweep_builder.py): exact Gillespie day in an event ``while_loop``
+that each block of chains leaves at its own event count, Poisson weights
+with a host-precomputed ``lgamma(y+1)`` observation column, and packed
+(S, I) selection. This module holds the SIR-specific callbacks
+(:func:`sir_sweep_parts`) and the public entry points; every scaffold
+concern — resampling, masked lanes (Q9), degenerate -inf contract, APF
+aux recompute + Q2 double transition
 (/root/reference/R/particle_filter_core.R:139-175), RMPF forced SISR +
-move (/root/reference/R/resample_move_filter.R:190-236), in-kernel PRNG
-mixing, chain blocking — lives in ONE place, the builder.
+move (/root/reference/R/resample_move_filter.R:190-236), the in-kernel
+random stream, chain blocking — lives in the builder.
 
-Changes from the bespoke kernel's surface:
-  * ``selection`` accepts "auto"/"merge" only — the builder resamples
-    through the O(N log N) merge network exclusively; the quadratic
-    [B, N, N] masked-reduce (and with it multinomial resampling on the
-    whole-sweep path) was retired with the bespoke kernel. Multinomial
-    still runs fused per-day (filters/core.py use_fused="auto").
-  * ``max_particles`` must be a power of two in [128, 1024]
-    (ops/merge_select.py contract; pmmh() pads tuned counts to pow2).
-  * ``n_total`` may exceed the packing bound 4094: (S, I) then ride the
-    selection as two raw f32 columns instead of one packed lane
-    (slightly slower, previously an error).
+Constraints: ``resample_fn`` must be stratified or systematic (sorted
+positions), and ``max_particles`` a power of two (Triton block width;
+pmmh() pads tuned counts to one). ``n_total`` above the packing bound
+4094 rides the selection as two raw f32 columns instead of one packed
+value.
 
 Semantics are the reference filters with fresh-weight SISR/SISAR
 (/root/reference/R/particle_filter_core.R:123-246, quirks Q2/Q4/Q5 as in
 filters/core.py's default ``carry_weights=False``). Bit-streams differ
-from both the bespoke kernel and the portable engine (counter scheduling
-is the builder's) — parity is distributional, like every RNG-bearing
-fast path (tests/test_sir_sweep.py, tests/test_sir_builder.py).
+from the plain engine — parity is distributional, like every RNG-bearing
+path (tests/test_sir_sweep.py, tests/test_sir_builder.py).
 """
 
 from __future__ import annotations
@@ -69,8 +51,8 @@ def sir_sweep_parts(
     """The SIR model as sweep-builder callbacks.
 
     Returns a dict with ``init_fn``/``transition_fn``/``log_weight_fn``/
-    ``aux_log_weight_fn``/``move_fn`` (the builder's Mosaic-traceable
-    callback contract), ``obs_transform`` (appends host-precomputed
+    ``aux_log_weight_fn``/``move_fn`` (the builder's callback
+    contract), ``obs_transform`` (appends host-precomputed
     ``lgamma(y+1)`` as a second observation column), ``num_obs_cols``,
     and ``pack_kw`` (packed (S, I) selection when ``n_total`` fits the
     exact-f32 bound).
@@ -82,11 +64,9 @@ def sir_sweep_parts(
     i >= 1 and gamma > 0, rate_tot >= gamma > 0; dead lanes' inf/NaN are
     gated behind ``fire`` (IEEE: NaN compares false). The branch
     decision uses ``u * rate_tot < rate_inf`` (multiply) instead of a
-    second division. jnp.log1p stays: Mosaic transcendentals are
-    hardware-assisted — a polynomial replacement measured 2.4 ms SLOWER
-    (round 3).
+    second division.
     """
-    from bayesssm_tpu.ops.gillespie_pallas import MAX_EVENTS
+    from bayesssm_tpu.models.sir import MAX_EVENTS
 
     nt = float(n_total)
     s0 = float(n_total - init_infected)
@@ -251,10 +231,9 @@ def sir_filter_sweep(
     threshold=None,
     unroll: int = 8,
     move_step_max: int = 2,
-    selection: str = "auto",
     interpret: bool = False,
 ):
-    """Full SIR particle-filter sweep in one fused TPU kernel (vmap-aware).
+    """Full SIR particle-filter sweep in one Triton kernel (vmap-aware).
 
     Drop-in fast path for the PMMH hot loop on the SIR model: returns
     ``(loglike, state_est [T+1, 2])`` with the same sampling distribution
@@ -262,14 +241,12 @@ def sir_filter_sweep(
     over ``sir_model(...)`` under the default fresh-weight semantics
     (bit-streams differ — parity is distributional, like every RNG-bearing
     path). ``num_particles`` may be a traced per-chain count with
-    ``max_particles`` the static lane bound (a power of two in
-    [128, 1024]). RMPF forces SISR (filters/resample_move.py:34-39
-    mirroring /root/reference/R/resample_move_filter.R:213-230).
+    ``max_particles`` the static lane bound (a power of two). RMPF forces
+    SISR (filters/resample_move.py:34-39 mirroring
+    /root/reference/R/resample_move_filter.R:213-230).
 
-    A sweep-builder instance since round 5 (module docstring): selection
-    is merge-only, so ``resample_fn`` must be stratified or systematic
-    (the fused per-day path serves multinomial) and ``selection`` accepts
-    "auto"/"merge".
+    ``resample_fn`` must be stratified or systematic (module
+    docstring).
     """
     if algorithm not in ("BPF", "APF", "RMPF"):
         raise ValueError("algorithm must be one of ('BPF', 'APF', 'RMPF')")
@@ -279,18 +256,11 @@ def sir_filter_sweep(
         )
     if resample_fn not in ("stratified", "systematic", "multinomial"):
         raise ValueError(f"unknown resample_fn {resample_fn!r}")
-    if selection not in ("auto", "merge"):
-        raise ValueError(
-            "selection must be 'auto' or 'merge': the whole-sweep path "
-            "resamples through the O(N log N) merge network (the "
-            "quadratic in-sweep selection was retired in round 5; use "
-            "the fused per-day path for selection='quadratic' behavior)"
-        )
     if resample_fn == "multinomial":
         raise ValueError(
-            "the whole-sweep path's merge selection requires sorted "
+            "the whole-sweep path resamples by a search over sorted "
             "positions (stratified/systematic); multinomial resampling "
-            "runs fused per-day through filters/core.py"
+            "runs on the plain engine (filters/core.py)"
         )
     if max_particles is None:
         max_particles = int(num_particles)

@@ -1,14 +1,12 @@
 """Generic whole-sweep kernel builder: the escape hatch as a public API.
 
-``ops/sir_sweep_pallas.py`` and ``ops/lgss_sweep_pallas.py`` demonstrate
-that running the ENTIRE T-observation particle filter in one Pallas
-kernel — state resident in VMEM, on-chip PRNG, merge-selection resample
-— is the speed ceiling for a model (486.9k vs 402.2k samples/s for SIR
-at the benchmark shape). Their day-loop scaffolding is model-independent;
-this module factors it out so ANY model whose state is a tuple of
-``[B, N]`` float columns and whose functions trace under Mosaic gets a
-whole-sweep ``pf_impl`` by writing three small callbacks instead of a
-kernel:
+Runs the ENTIRE T-observation particle filter as ONE Pallas kernel
+through Triton (``backend="triton"``): each program holds a small block
+of chains with all their particles in registers for every observation,
+draws its random numbers from an in-kernel counter-based generator, and
+resamples by an inverse-CDF search. Any model whose state is a tuple of
+``[B, N]`` float columns gets a whole-sweep ``pf_impl`` by writing three
+small callbacks instead of a kernel:
 
     pf_impl = build_sweep_pf_impl(
         num_state_cols=1,
@@ -22,29 +20,37 @@ kernel:
 
 Callback contract (TRUSTED, like every ``pf_impl``):
   * All state columns and every value ``rng.normal()`` / ``rng.uniform()``
-    return are ``[B, N]`` float32 arrays; callbacks must use only
-    operations Mosaic can lower (jnp elementwise, reductions,
-    ``pltpu.roll``; no gather/scatter/sort) — exactly the model-function
-    contract of the bespoke kernels.
+    return are ``[B, N]`` float32 arrays (B chains of one program, N
+    particle lanes). Callbacks trace into the Triton kernel: they may use
+    ``jnp`` elementwise operations, reductions along the lane axis and
+    ``lax`` control flow (``while_loop``/``fori_loop``/``cond``), but no
+    gather, scatter, sort, concatenation or ``jnp.stack`` (Triton lowers
+    none of them inside a block).
   * ``theta`` is a tuple of ``[B, N]`` broadcasts of the per-chain
     parameters, ordered as ``param_names``.
-  * ``rng`` is a :class:`SweepRng` drawing from the kernel's on-chip
-    generator (counter-based software stream under the interpreter);
-    callbacks may draw any number of blocks.
+  * ``rng`` is a :class:`SweepRng` over the kernel's lowbias32 counter
+    stream; callbacks may draw any number of blocks.
   * ``log_weight_fn`` returns the UNMASKED ``[B, N]`` observation
     log-density; the scaffold applies the alive-lane mask, degeneracy
-    flag, normalization, likelihood increment, resampling (merge
-    network, stratified/systematic), and state-estimate recording.
+    flag, normalization, likelihood increment, resampling
+    (stratified/systematic), and state-estimate recording.
   * Optional ``aux_log_weight_fn(cols, theta, y_t)`` enables the APF day
     (forced aux resample + the reference's Q2 second transition);
     optional ``move_fn(rng, cols, theta, y_t)`` enables the RMPF day
-    (forced SISR + rejuvenation move), mirroring
-    ``ops/sir_sweep_pallas.py``'s algorithm branches.
+    (forced SISR + rejuvenation move).
 
 Semantics match ``filters/core.py`` with the default fresh-weight
 ``carry_weights=False`` (quirks Q2/Q4/Q5, masked lanes Q9, degenerate
 -inf contract), validated distributionally in tests/test_sweep_builder.py
-against the portable engine on a model with no bespoke kernel.
+against the plain engine.
+
+Random stream: lane ``l`` of the chain whose key data is ``(s0, s1)``
+draws block ``k`` as ``hash(lane_key ^ hash(k))`` with
+``lane_key = hash(hash(s0 ^ hash(s1)) + l * 0x9E3779B9)``, the lowbias32
+finalizer :func:`_hash32`. The stream depends on the chain's key and the
+lane only, never on the program layout, so the compiled kernel and its
+``interpret=True`` run on the CPU draw the same bits at any chains per
+program.
 """
 
 from __future__ import annotations
@@ -53,20 +59,46 @@ import functools
 
 import jax
 import jax.numpy as jnp
-
-from bayesssm_tpu.ops.gillespie_pallas import _hash32
+import numpy as np
 
 __all__ = ["build_sweep_pf_impl", "build_sweep_op", "SweepRng"]
 
-_SELECTION_VMEM_BUDGET = 8 * 1024 * 1024
-# Chain-block cap for the merge-selection sweeps. Without a [B, N, N]
-# intermediate the VMEM budget admits large chain blocks; the round-4
-# sweep over caps {64, 128, 256, 512} x unroll {8, 16} on the SIR
-# whole-sweep measured 399.5k / 451.6k / 474.2k / VMEM-OOM samples/s at
-# the bench shape — fewer, larger programs win (per-program launch
-# overhead dominates the wider block-max event tail). 256 is the
-# measured best that compiles.
-_MERGE_BLOCK_CAP = 256
+# Lanes per program (chains per program x particles). Chains in one
+# program share the transition callback's control flow, so an event loop
+# runs until the slowest chain of the block is done: fewer chains per
+# program terminate closer to each chain's own event count. Measured on
+# an H100 for SIR BPF/APF/RMPF at 4096 chains x 128 particles against
+# 256 and 512 lanes (PERF.md).
+_LANES_PER_PROGRAM = 128
+_NEG = np.float32(-1e30)
+_DEGENERATE = np.float32(-1e8)
+_INV24 = np.float32(1.0 / (1 << 24))
+
+
+def _hash32(x):
+    """lowbias32 integer finalizer (uint32 in, uint32 out): the kernel's
+    counter-based generator step. uint32 multiply wraps mod 2^32, as the
+    hash is defined."""
+    x = x ^ (x >> jnp.uint32(16))
+    x = x * jnp.uint32(0x7FEB352D)
+    x = x ^ (x >> jnp.uint32(15))
+    x = x * jnp.uint32(0x846CA68B)
+    x = x ^ (x >> jnp.uint32(16))
+    return x
+
+
+def _num_warps(lanes: int) -> int:
+    """Warps per program: 4 up to 256 lanes, then one warp per 64 lanes,
+    at most 16 (measured on an H100: 4 beat 2 and 8 at 128 lanes; 16 beat
+    4 and 8 at 1024 lanes, PERF.md)."""
+    return max(4, min(16, lanes // 64))
+
+
+def _chains_per_program(c: int, n: int) -> int:
+    """Power-of-two chains per program: ``_LANES_PER_PROGRAM // n``
+    chains, at least one, and no more than ``c`` rounded up."""
+    b = max(1, _LANES_PER_PROGRAM // n)
+    return min(b, 1 << max(0, (c - 1).bit_length()))
 
 
 class SweepRng:
@@ -85,15 +117,11 @@ class SweepRng:
             ...
         ... = lax.while_loop(cond, body, (..., ctr))
         rng.set_counter(ctr_out)   # BEFORE returning from the callback
-
-    (Under the hardware PRNG the counter is not consumed for bits —
-    ``prng_random_bits`` is stateful — but it must still be threaded so
-    the interpret-mode software stream, which hashes it, stays exact.)
     """
 
-    def __init__(self, draw):
+    def __init__(self, draw, ctr=None):
         self._draw = draw
-        self._ctr = jnp.int32(0)
+        self._ctr = jnp.int32(0) if ctr is None else ctr
 
     def uniform(self):
         """One [B, N] uniform f32 block in [0, 1)."""
@@ -101,16 +129,12 @@ class SweepRng:
         return u[0]
 
     def uniforms(self, k):
-        """``k`` [B, N] uniform blocks from ONE generator call (cheaper
-        than ``k`` separate :meth:`uniform` calls under the hardware
-        PRNG). Returns a [k, B, N] stack."""
+        """``k`` [B, N] uniform blocks, as a tuple."""
         u, self._ctr = self._draw(int(k), self._ctr)
         return u
 
     def normal(self):
         """One [B, N] standard-normal block (Box-Muller)."""
-        import numpy as np
-
         u, self._ctr = self._draw(2, self._ctr)
         r = jnp.sqrt(-2.0 * jnp.log(1.0 - u[0]))
         return r * jnp.cos(np.float32(2.0 * np.pi) * u[1])
@@ -126,111 +150,133 @@ class SweepRng:
     def raw_uniform_blocks(self, nblk, ctr):
         """``nblk`` [B, N] uniform blocks as a PURE function of ``ctr``.
 
-        Returns ``(blocks [nblk, B, N], new_ctr)``; does NOT touch the
+        Returns ``(blocks (tuple of nblk), new_ctr)``; does NOT touch the
         handle's own counter — for use inside callback-managed control
         flow with the counter in the loop carry.
         """
         return self._draw(nblk, ctr)
 
 
-def _chains_per_program(c: int, n: int, d: int) -> int:
-    stages = (2 * n - 1).bit_length()
-    per_chain = 2 * n * 4 * (stages + 4 + 2 * d)
-    b = max(
-        1,
-        min(c, _MERGE_BLOCK_CAP, _SELECTION_VMEM_BUDGET // per_chain or 1),
+def lane_streams(s0, s1, n: int):
+    """Per-lane stream keys ``[..., n]`` (uint32) from per-chain key words
+    ``s0, s1`` of shape ``[..., 1]`` (module docstring)."""
+    lane = jax.lax.broadcasted_iota(
+        jnp.int32, tuple(s0.shape[:-1]) + (n,), s0.ndim - 1
+    ).astype(jnp.uint32)
+    chain = _hash32(s0 ^ _hash32(s1))
+    return _hash32(chain + lane * jnp.uint32(0x9E3779B9))
+
+
+def uniform_block(lane_key, ctr):
+    """Block ``ctr`` of the stream: uniforms in [0, 1) on a 2^-24 grid."""
+    ctr_key = _hash32(jax.lax.convert_element_type(ctr, jnp.uint32))
+    bits = _hash32(lane_key ^ ctr_key)
+    return (bits >> jnp.uint32(8)).astype(jnp.int32).astype(
+        jnp.float32
+    ) * _INV24
+
+
+def search_sorted_left(load_cdf, pos, n: int):
+    """``searchsorted(cdf, pos, side='left')`` for a power-of-two ``n``,
+    as a branchless binary search whose probes go through
+    ``load_cdf(idx) -> cdf[idx]``.
+
+    Each step keeps the invariant that every entry below ``idx`` is
+    ``< pos``. The result lies in ``[0, n - 1]``; callers clip to the
+    last alive lane, which makes it equal to ``ops/resampling.py``'s
+    clipped ``searchsorted``.
+    """
+    idx = jnp.zeros(pos.shape, jnp.int32)
+    step = n // 2
+    while step >= 1:
+        probe = load_cdf(idx + (step - 1))
+        idx = jnp.where(probe < pos, idx + step, idx)
+        step //= 2
+    return idx
+
+
+def select_columns(scr_ref, scr_row, lane, w, pos, cols, last_alive,
+                   barrier):
+    """Inverse-CDF selection inside a kernel: ancestors and their columns.
+
+    ``w``/``pos``/``cols[j]`` are ``[B, N]`` (weights, sorted positions,
+    state columns); ``lane`` is the ``[B, N]`` lane iota, ``last_alive``
+    the ``[B, 1]`` index of each row's last alive lane. The CDF and the
+    columns pass through ``1 + len(cols)`` scratch rows of N values per
+    chain, starting at flat offset ``scr_row`` (``[B, 1]``) of
+    ``scr_ref``: stored once, then read at the search probes and at the
+    ancestors. ``barrier()`` separates a lane's store from other lanes'
+    loads. Returns ``(ancestors [B, N] int32, selected columns)``.
+    """
+    n = w.shape[-1]
+    cdf = jnp.cumsum(w, axis=-1)
+    barrier()  # the previous selection's loads are done
+    scr_ref[scr_row + lane] = cdf
+    for j, c in enumerate(cols):
+        scr_ref[scr_row + (j + 1) * n + lane] = c
+    barrier()
+    anc = search_sorted_left(lambda i: scr_ref[scr_row + i], pos, n)
+    anc = jnp.minimum(anc, last_alive)
+    sel = tuple(
+        scr_ref[scr_row + (j + 1) * n + anc] for j in range(len(cols))
     )
-    return 1 << (b.bit_length() - 1)
+    return anc, sel
 
 
-def _make_kernel(n, num_obs, d, p, init_fn, transition_fn, log_weight_fn,
-                 aux_log_weight_fn, move_fn, method, always_resample,
-                 software_prng, d_y=1, pack_fn=None, unpack_fn=None,
-                 gapped=False, never_resample=False):
+def _make_kernel(n, b, num_obs, d, d_route, p, init_fn, transition_fn,
+                 log_weight_fn, aux_log_weight_fn, move_fn, method,
+                 always_resample, interpret, d_y=1, pack_fn=None,
+                 unpack_fn=None, gapped=False, never_resample=False):
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
-    import numpy as np
+    t1 = num_obs + 1
+    slots = d_route + 1  # scratch rows per chain: routed columns + CDF
 
-    from bayesssm_tpu.ops.merge_select import (
-        merge_select_cols,
-        resolve_carries,
-    )
-
-    inv24 = np.float32(1.0 / (1 << 24))
-    neg = np.float32(-1e30)
-    degenerate = np.float32(-1e8)
+    def barrier():
+        # Within one program, a lane loads what another lane stored: the
+        # warps must meet in between. Sequential interpretation needs none.
+        if not interpret:
+            plgpu.debug_barrier()
 
     def kernel(*refs):
-        seed_ref, y_ref = refs[:2]
+        y_ref, seed_ref = refs[:2]
         base = 2
         if gapped:
             gaps_ref, times_ref = refs[2:4]
             base = 4
-        sd0_ref, sd1_ref = refs[base : base + 2]
-        theta_refs = refs[base + 2 : base + 2 + p]
-        alive_ref, thr_ref = refs[base + 2 + p : base + 4 + p]
-        ll_ref = refs[base + 4 + p]
-        est_refs = refs[base + 5 + p : base + 5 + p + d]
+        theta_ref, alive_ref, thr_ref, ll_ref, est_ref, scr_ref = refs[
+            base : base + 6
+        ]
 
-        alive_ct = alive_ref[:, 0:1]
-        thr = thr_ref[:, 0:1]
-        theta = tuple(r[:, :] for r in theta_refs)
-        b = alive_ct.shape[0]
-
+        pid = pl.program_id(0)
+        rows = pid * b + jax.lax.broadcasted_iota(jnp.int32, (b, 1), 0)
         lane = jax.lax.broadcasted_iota(jnp.int32, (b, n), 1)
         lane_f = lane.astype(jnp.float32)
+        alive_ct = alive_ref[rows]
+        thr = thr_ref[rows]
         alive_mask = lane_f < alive_ct
-
-        seed0 = seed_ref[pl.program_id(0), 0]
-        seed1 = seed_ref[pl.program_id(0), 1]
-        sd0 = sd0_ref[:, :]
-        sd1 = sd1_ref[:, :]
-        rmix = sd0 ^ (sd1 * jnp.int32(-1640531527) + jnp.int32(1))
-        rmix = rmix ^ ((rmix >> 16) & jnp.int32(0x0000FFFF))
-        rmix = rmix * jnp.int32(0x7FEB352D)
-        rmix = rmix ^ ((rmix >> 15) & jnp.int32(0x0001FFFF))
-        rmix = rmix * jnp.int32(-2073254261)
-        row_mix = jnp.broadcast_to(rmix, (b, n))
-        if software_prng:
-            pid = jax.lax.convert_element_type(pl.program_id(0), jnp.uint32)
-            s0w = jax.lax.convert_element_type(seed0, jnp.uint32)
-            s1w = jax.lax.convert_element_type(seed1, jnp.uint32)
-            base = _hash32(s0w ^ _hash32(s1w ^ _hash32(pid)))
-            row = jax.lax.broadcasted_iota(jnp.int32, (b, n), 0)
-            lane_id = jax.lax.convert_element_type(row * n + lane,
-                                                   jnp.uint32)
-            lane_mix = _hash32(base + lane_id * jnp.uint32(0x9E3779B9))
-        else:
-            pid = pl.program_id(0)
-            s0_mix = seed0 ^ (pid * jnp.int32(-1640531527) + jnp.int32(1))
-            pltpu.prng_seed(s0_mix, seed1)
-            lane_mix = None
+        last_alive = alive_ct.astype(jnp.int32) - 1
+        theta = tuple(
+            jnp.broadcast_to(theta_ref[rows * p + j], (b, n))
+            for j in range(p)
+        )
+        s0 = jax.lax.bitcast_convert_type(seed_ref[rows * 2], jnp.uint32)
+        s1 = jax.lax.bitcast_convert_type(seed_ref[rows * 2 + 1], jnp.uint32)
+        lane_key = lane_streams(s0, s1, n)
+        scr_row = rows * (slots * n)
 
         def draw(nblk, ctr):
-            if software_prng:
-                d0 = jax.lax.convert_element_type(ctr, jnp.uint32)
-                rm = jax.lax.convert_element_type(row_mix, jnp.uint32)
-                bits = jnp.stack([
-                    _hash32((lane_mix ^ rm)
-                            ^ ((d0 + jnp.uint32(k))
-                               * jnp.uint32(0x85EBCA6B)))
-                    for k in range(nblk)
-                ])
-                u24 = (bits >> jnp.uint32(8)).astype(jnp.int32)
-            else:
-                raw = pltpu.prng_random_bits((nblk, b, n))
-                u24 = ((raw ^ row_mix[None]) >> 8) & jnp.int32(0x00FFFFFF)
-            return u24.astype(jnp.float32) * inv24, ctr + jnp.int32(nblk)
-
-        def roll(x, shift, axis=1):
-            return pltpu.roll(x, shift, axis=axis)
+            blocks = tuple(
+                uniform_block(lane_key, ctr + k) for k in range(nblk)
+            )
+            return blocks, ctr + jnp.int32(nblk)
 
         def draw_positions(rng):
             u = rng.uniform()
             if method == "stratified":
                 pos = (lane_f + u) / alive_ct
-            else:  # systematic
+            else:  # systematic: lane 0's draw is the shared offset
                 u0 = jnp.max(jnp.where(lane == 0, u, 0.0), axis=-1,
                              keepdims=True)
                 pos = (lane_f + u0) / alive_ct
@@ -238,73 +284,36 @@ def _make_kernel(n, num_obs, d, p, init_fn, transition_fn, log_weight_fn,
 
         def masked_lw(cols, y_t):
             lw = log_weight_fn(cols, theta, y_t)
-            return jnp.where(alive_mask, lw, neg)
-
-        def select(w, pos, cols):
-            cdf = w
-            shift = 1
-            while shift < n:
-                rolled = roll(cdf, shift)
-                cdf = cdf + jnp.where(lane >= shift, rolled, 0.0)
-                shift *= 2
-            shift = 1
-            while shift < n:
-                rolled = roll(cdf, shift)
-                cdf = jnp.maximum(cdf, jnp.where(lane >= shift, rolled, 0.0))
-                shift *= 2
-            cdf_ext = jnp.where(
-                lane_f >= alive_ct - 1.0, np.float32(1.5), cdf
-            )
-            carries = tuple(
-                resolve_carries(cdf_ext, roll(c, n - 1), lane, roll)
-                for c in cols
-            )
-            v0s = tuple(
-                jnp.sum(jnp.where(lane == 0, c, 0.0), axis=-1,
-                        keepdims=True)
-                for c in cols
-            )
-            out = merge_select_cols(cdf_ext, pos, carries, v0s, lane, roll)
-            return tuple(jnp.where(alive_mask, o, 0.0) for o in out)
+            return jnp.where(alive_mask, lw, _NEG)
 
         def select_state(w, pos, cols):
-            """Selection with optional column packing: route
-            ``pack_fn(cols)`` (fewer columns through the merge network,
-            e.g. two integer counts packed into one f32 lane), unpack,
-            re-mask."""
+            """Inverse-CDF resample of ``cols`` (pack -> gather ->
+            unpack)."""
             route = tuple(pack_fn(cols)) if pack_fn is not None else cols
-            sel = select(w, pos, route)
+            _, sel = select_columns(
+                scr_ref, scr_row, lane, w, pos, route, last_alive, barrier
+            )
             if unpack_fn is not None:
-                sel = tuple(
-                    jnp.where(alive_mask, o, 0.0)
-                    for o in unpack_fn(sel)
-                )
-            return sel
+                sel = tuple(unpack_fn(sel))
+            return tuple(jnp.where(alive_mask, o, 0.0) for o in sel)
+
+        def record(t, cols, est_w, live_f):
+            for j, c in enumerate(cols):
+                v = jnp.sum(est_w * c, axis=-1, keepdims=True) * live_f
+                est_ref[(rows * t1 + t) * d + j] = v
 
         rng = SweepRng(draw)
         cols = tuple(init_fn(rng, theta))
-        assert len(cols) == d, "init_fn must return num_state_cols columns"
+        if len(cols) != d:
+            raise ValueError("init_fn must return num_state_cols columns")
+        w0 = jnp.where(alive_mask, 1.0 / alive_ct, 0.0)
+        record(0, cols, w0, jnp.ones((b, 1), jnp.float32))
         loglike = jnp.zeros((b, 1), jnp.float32)
         dead = jnp.zeros((b, 1), jnp.float32)
 
-        t1 = est_refs[0].shape[1]
-        est_col = jax.lax.broadcasted_iota(jnp.int32, (b, t1), 1)
-        w0 = jnp.where(alive_mask, 1.0 / alive_ct, 0.0)
-        accs = tuple(
-            jnp.where(
-                est_col == 0,
-                jnp.sum(w0 * c, axis=-1, keepdims=True), 0.0,
-            )
-            for c in cols
-        )
-
         def day(t, carry):
-            cols, loglike, dead, ctr, accs = carry
-            rng = SweepRng(draw)
-            rng._ctr = ctr
-            est_mask = est_col == t + 1
-            # y is a FLAT [T * d_y] SMEM array (1D scalar reads are the
-            # Mosaic-safe layout); row t's columns are t*d_y + j.
+            cols, loglike, dead, ctr = carry
+            rng = SweepRng(draw, ctr)
             y_t = (
                 y_ref[t] if d_y == 1
                 else tuple(y_ref[t * d_y + j] for j in range(d_y))
@@ -322,113 +331,89 @@ def _make_kernel(n, num_obs, d, p, init_fn, transition_fn, log_weight_fn,
 
                 def gap_body(s, gcarry):
                     gcols, gctr = gcarry
-                    grng = SweepRng(draw)
-                    grng._ctr = gctr
+                    grng = SweepRng(draw, gctr)
                     gcols = tuple(
                         transition_fn(grng, gcols, theta, t_end - gap + s)
                     )
-                    return gcols, grng._ctr
+                    return gcols, grng.counter()
 
                 cols, ctr2 = jax.lax.fori_loop(
-                    0, gap, gap_body, (cols, rng._ctr)
+                    0, gap, gap_body, (cols, rng.counter())
                 )
-                rng._ctr = ctr2
+                rng.set_counter(ctr2)
             else:
                 cols = tuple(transition_fn(rng, cols, theta, t))
 
             if aux_log_weight_fn is not None:
                 aux_lw = jnp.where(
-                    alive_mask, aux_log_weight_fn(cols, theta, y_t), neg
+                    alive_mask, aux_log_weight_fn(cols, theta, y_t), _NEG
                 )
                 mxa = jnp.max(aux_lw, axis=-1, keepdims=True)
                 dead = jnp.maximum(
-                    dead, (mxa < degenerate).astype(jnp.float32)
+                    dead, (mxa < _DEGENERATE).astype(jnp.float32)
                 )
                 sha = jnp.exp(aux_lw - mxa)
                 wa = sha / jnp.sum(sha, axis=-1, keepdims=True)
-                pos_a = draw_positions(rng)
-                cols = select_state(wa, pos_a, cols)
-                # Ancestor aux weight RECOMPUTED from the selected state
-                # instead of routed as an extra merge column: selection
-                # copies (and pack/unpack) are exact, and the aux weight
-                # is a deterministic function of (cols, theta, y_t), so
-                # the recompute equals the gather bit-for-bit while
-                # keeping one fewer column in the merge network
-                # (measured +9% APF throughput at the benchmark shape —
-                # the same trick as ops/sir_sweep_pallas.py:449-452).
+                cols = select_state(wa, draw_positions(rng), cols)
+                # The ancestor's aux weight is recomputed from the
+                # selected state: selection copies (and pack/unpack) are
+                # exact and the aux weight is a deterministic function of
+                # (cols, theta, y_t), so this equals gathering it.
                 aux_anc = jnp.maximum(
                     jnp.where(
                         alive_mask,
-                        aux_log_weight_fn(cols, theta, y_t), neg,
+                        aux_log_weight_fn(cols, theta, y_t), _NEG,
                     ),
-                    neg,
+                    _NEG,
                 )
                 # Q2: ONE second transition at the observation time
-                # (times_ref[t] - 1 == t on a contiguous grid).
+                # (times[t] - 1 == t on a contiguous grid).
                 t_q2 = times_ref[t] - 1 if gapped else t
                 cols = tuple(transition_fn(rng, cols, theta, t_q2))
                 lw = masked_lw(cols, y_t) - aux_anc
-                lw = jnp.where(alive_mask, lw, neg)
+                lw = jnp.where(alive_mask, lw, _NEG)
             else:
                 lw = masked_lw(cols, y_t)
 
             mx = jnp.max(lw, axis=-1, keepdims=True)
-            dead = jnp.maximum(dead, (mx < degenerate).astype(jnp.float32))
+            dead = jnp.maximum(dead, (mx < _DEGENERATE).astype(jnp.float32))
             shifted = jnp.exp(lw - mx)
             ssum = jnp.sum(shifted, axis=-1, keepdims=True)
             w = shifted / ssum
             ess = 1.0 / jnp.sum(w * w, axis=-1, keepdims=True)
             loglike = loglike + mx + jnp.log(ssum) - jnp.log(alive_ct)
 
+            uniform_w = jnp.where(alive_mask, 1.0 / alive_ct, 0.0)
             if never_resample:
-                # SIS day: no selection at all (the fresh-weight SIS of
-                # the portable core with carry_weights=False — quirk
-                # territory, matching particle_filter_core.R's SIS
-                # branch under the reference's fresh-weight semantics).
+                # SIS day: no selection (the fresh-weight SIS of the
+                # plain engine with carry_weights=False).
                 est_w = w
             else:
-                pos = draw_positions(rng)
-                res = select_state(w, pos, cols)
-
+                res = select_state(w, draw_positions(rng), cols)
                 if always_resample:
                     cols = res
-                    est_w = jnp.where(alive_mask, 1.0 / alive_ct, 0.0)
+                    est_w = uniform_w
                 else:
                     do_rows = jnp.broadcast_to(ess < thr, (b, n))
                     cols = tuple(
-                        jnp.where(do_rows, r, c)
-                        for r, c in zip(res, cols)
+                        jnp.where(do_rows, r, c) for r, c in zip(res, cols)
                     )
-                    est_w = jnp.where(
-                        do_rows,
-                        jnp.where(alive_mask, 1.0 / alive_ct, 0.0), w,
-                    )
+                    est_w = jnp.where(do_rows, uniform_w, w)
 
             if move_fn is not None:
                 moved = tuple(move_fn(rng, cols, theta, y_t))
                 # Masked lanes stay inert.
                 cols = tuple(
-                    jnp.where(alive_mask, m, c)
-                    for m, c in zip(moved, cols)
+                    jnp.where(alive_mask, m, c) for m, c in zip(moved, cols)
                 )
 
-            live_f = 1.0 - dead
-            accs = tuple(
-                jnp.where(
-                    est_mask,
-                    jnp.sum(est_w * c, axis=-1, keepdims=True) * live_f,
-                    acc,
-                )
-                for c, acc in zip(cols, accs)
-            )
-            return cols, loglike, dead, rng._ctr, accs
+            record(t + 1, cols, est_w, 1.0 - dead)
+            return cols, loglike, dead, rng.counter()
 
-        cols, loglike, dead, _, accs = jax.lax.fori_loop(
-            0, num_obs, day, (cols, loglike, dead, rng._ctr, accs)
+        _, loglike, dead, _ = jax.lax.fori_loop(
+            0, num_obs, day, (cols, loglike, dead, rng.counter())
         )
-        ll_ref[:, :] = jnp.where(dead > 0.0, -jnp.inf, loglike)
-        for r, acc in zip(est_refs, accs):
-            r[:, :] = acc
+        ll_ref[rows] = jnp.where(dead > 0.0, -jnp.inf, loglike)
 
     return kernel
 
@@ -439,7 +424,7 @@ def _batched_call(seeds, thetas, alive, thr, y, *, n_static, d, init_fn,
                   d_y=1, pack_fn=None, unpack_fn=None, num_packed_cols=1,
                   gaps=None, never_resample=False):
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
     c = thetas[0].shape[0]
     p = len(thetas)
@@ -447,11 +432,9 @@ def _batched_call(seeds, thetas, alive, thr, y, *, n_static, d, init_fn,
     num_obs = y.shape[0]
     t1 = num_obs + 1
     gapped = gaps is not None
-
-    # VMEM budget counts the columns actually ROUTED through the merge
-    # network (the ancestor aux weight is recomputed, not routed).
     d_route = num_packed_cols if pack_fn is not None else d
-    b = _chains_per_program(c, n, d_route)
+
+    b = _chains_per_program(c, n)
     g = -(-c // b)
     pad = g * b - c
     if pad:
@@ -459,79 +442,49 @@ def _batched_call(seeds, thetas, alive, thr, y, *, n_static, d, init_fn,
         # Padded chains replicate the LAST chain's theta (mode="edge" —
         # any real chain's theta is in-support) with one alive lane;
         # padded outputs are discarded.
-        thetas = tuple(
-            jnp.pad(t, (0, pad), mode="edge") for t in thetas
-        )
+        thetas = tuple(jnp.pad(t, (0, pad), mode="edge") for t in thetas)
         alive = jnp.pad(alive, (0, pad), constant_values=1.0)
         thr = jnp.pad(thr, (0, pad), constant_values=1.0)
+    cp = g * b
 
     kernel = _make_kernel(
-        n, int(num_obs), d, p, init_fn, transition_fn, log_weight_fn,
-        aux_log_weight_fn, move_fn, method, bool(always_resample),
-        bool(interpret), d_y=int(d_y), pack_fn=pack_fn,
-        unpack_fn=unpack_fn, gapped=gapped,
+        n, b, int(num_obs), d, d_route, p, init_fn, transition_fn,
+        log_weight_fn, aux_log_weight_fn, move_fn, method,
+        bool(always_resample), bool(interpret), d_y=int(d_y),
+        pack_fn=pack_fn, unpack_fn=unpack_fn, gapped=gapped,
         never_resample=bool(never_resample),
     )
-    space = pl.ANY if interpret else pltpu.VMEM
-    smem = pl.ANY if interpret else pltpu.SMEM
-
-    def spec(*dims):
-        return pl.BlockSpec(
-            (None,) + dims, lambda idx: (idx,) + (0,) * len(dims),
-            memory_space=space,
-        )
-
-    def whole(shape):
-        return pl.BlockSpec(
-            shape, lambda idx: (0,) * len(shape), memory_space=smem
-        )
-
-    def col(x):
-        return jnp.broadcast_to(
-            x.astype(jnp.float32)[:, None], (g * b, n)
-        ).reshape(g, b, n)
-
-    def scol(x):
-        return jnp.broadcast_to(x[:, None], (g * b, n)).reshape(g, b, n)
-
-    sdim = (b, n)
-    y1d = y.astype(jnp.float32).reshape(num_obs * d_y)
-    gap_specs, gap_args = [], []
+    gap_args = []
     if gapped:
-        import numpy as np
-
         gaps_np = np.asarray(gaps, np.int32)
-        times_np = np.cumsum(gaps_np).astype(np.int32)
-        gap_specs = [whole((num_obs,)), whole((num_obs,))]
-        gap_args = [jnp.asarray(gaps_np), jnp.asarray(times_np)]
-    outs = pl.pallas_call(
+        gap_args = [
+            jnp.asarray(gaps_np),
+            jnp.asarray(np.cumsum(gaps_np).astype(np.int32)),
+        ]
+    ll, est, _ = pl.pallas_call(
         kernel,
         grid=(g,),
-        out_shape=tuple(
-            [jax.ShapeDtypeStruct((g, b, 1), jnp.float32)]
-            + [jax.ShapeDtypeStruct((g, b, t1), jnp.float32)] * d
+        out_shape=(
+            jax.ShapeDtypeStruct((cp,), jnp.float32),
+            jax.ShapeDtypeStruct((cp * t1 * d,), jnp.float32),
+            jax.ShapeDtypeStruct((cp * (d_route + 1) * n,), jnp.float32),
         ),
-        in_specs=[whole((g, 2)), whole((num_obs * d_y,))]
-        + gap_specs
-        + [spec(*sdim), spec(*sdim)]
-        + [spec(*sdim)] * p
-        + [spec(*sdim), spec(*sdim)],
-        out_specs=tuple([spec(b, 1)] + [spec(b, t1)] * d),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_num_warps(b * n), num_stages=1
+        ),
         interpret=interpret,
+        name="sweep_filter",
     )(
-        seeds.reshape(g, b, 2)[:, 0, :],
-        y1d,
+        y.astype(jnp.float32).reshape(num_obs * d_y),
+        seeds.reshape(cp * 2),
         *gap_args,
-        scol(seeds[:, 0]),
-        scol(seeds[:, 1]),
-        *[col(t) for t in thetas],
-        col(alive),
-        col(thr),
+        jnp.stack(thetas, axis=1).astype(jnp.float32).reshape(cp * p),
+        alive.astype(jnp.float32),
+        thr.astype(jnp.float32),
     )
-    ll = outs[0].reshape(g * b)[:c]
-    ests = [o.reshape(g * b, t1)[:c] for o in outs[1:]]
-    est = ests[0] if d == 1 else jnp.stack(ests, axis=-1)
-    return ll, est
+    est = est.reshape(cp, t1, d)[:c]
+    return ll[:c], (est[..., 0] if d == 1 else est)
 
 
 def build_sweep_op(
@@ -559,28 +512,30 @@ def build_sweep_op(
     state_est [T+1(, d)])``.
 
     ``num_obs_cols`` (d_y): observation columns; callbacks receive
-    ``y_t`` as a scalar when 1 (back-compat) or a tuple of d_y scalars
-    read from SMEM (multivariate rows,
-    /root/reference/R/particle_filter_core.R:176-183 — also usable for
-    per-observation precomputed constants like ``lgamma(y + 1)``).
+    ``y_t`` as a scalar when 1 or a tuple of d_y scalars (multivariate
+    rows, /root/reference/R/particle_filter_core.R:176-183 — also usable
+    for per-observation precomputed constants like ``lgamma(y + 1)``).
 
     ``pack_fn(cols) -> tuple`` / ``unpack_fn(packed) -> cols`` (with
     ``num_packed_cols`` = the packed tuple's length) optionally shrink
-    the column set routed through the merge network per resample — e.g.
-    two integer counts packed into one exact f32 lane (the
-    ops/sir_sweep_pallas.py trick, generically). Merge copies are exact
-    for any f32, so packing is purely a throughput optimization.
+    the column set the resample gathers — e.g. two integer counts packed
+    into one exact f32 value. The gather copies values exactly, so
+    packing changes no result when ``unpack_fn(pack_fn(cols))`` returns
+    ``cols`` bit for bit.
 
     ``obs_gaps``: static per-observation transition counts (tuple of
     ints >= 1, one per observation) for irregular observation grids
     (/root/reference/R/particle_filter_core.R:122-137). ``None`` = one
     transition per observation (contiguous). The callback's time
     argument is the absolute 0-based transition index.
+
+    ``interpret=True`` runs the same kernel under the Pallas interpreter
+    (CPU tests); it draws the same random bits as the compiled kernel.
     """
     if resample_fn not in ("stratified", "systematic"):
         raise ValueError(
-            "the sweep builder resamples through the merge network and "
-            "requires sorted positions (stratified/systematic)"
+            "the sweep builder resamples by a search over sorted positions "
+            "(stratified or systematic)"
         )
     if (pack_fn is None) != (unpack_fn is None):
         raise ValueError("pack_fn and unpack_fn must be given together")
@@ -655,15 +610,11 @@ def build_sweep_op(
         if max_particles is None:
             max_particles = int(num_particles)
         n_static = int(max_particles)
-        if n_static < 128 or n_static > 1024 or n_static & (n_static - 1):
-            # The builder's selection step is merge-only (no quadratic
-            # fallback), and the merge network requires a power of two
-            # (ops/merge_select.py contract).
+        if n_static < 1 or n_static & (n_static - 1):
             raise ValueError(
-                "max_particles must be a power of two in [128, 1024] "
-                f"(got {n_static}); the fused sweep resamples through "
-                "the bitonic merge network, which is undefined for "
-                "composite lane counts"
+                "max_particles must be a power of two (got "
+                f"{n_static}); Triton blocks span a power-of-two number "
+                "of lanes"
             )
         ys = jnp.asarray(y, jnp.float32)
         if d_y == 1:
@@ -725,7 +676,7 @@ def build_sweep_pf_impl(
     applied to the driver's raw ``y`` once per pmmh() call — the place
     to append precomputed per-observation constants the kernel should
     not recompute per lane (e.g. ``lgamma(y + 1)`` for a Poisson
-    weight, the trick of ops/sir_sweep_pallas.py's host-side ``lgy``).
+    weight).
     """
     expected_params = tuple(param_names)
 
@@ -743,9 +694,6 @@ def build_sweep_pf_impl(
     ):
         del model_fns
         if algorithm not in ("BPF", "APF", "RMPF"):
-            # SIS (never-resample) has no fused sweep: the builder's day
-            # always runs the adaptive/forced resample stage, so an
-            # unknown algorithm must not silently sample as BPF.
             raise ValueError(
                 "the sweep builder supports BPF, APF or RMPF only"
             )
@@ -775,9 +723,7 @@ def build_sweep_pf_impl(
             )
         # The callbacks see theta ordered as the BUILDER's param_names;
         # the driver passes theta_vec in ITS param order (whatever order
-        # the user's log_priors dict iterates). Permute instead of
-        # demanding exact order — the pre-consolidation SIR factory
-        # accepted any order and this keeps that contract.
+        # the user's log_priors dict iterates).
         perm = tuple(param_names.index(q) for q in expected_params)
         # RMPF strips any user resample_algorithm and forces SISR
         # (/root/reference/R/resample_move_filter.R:213-230), so SIS

@@ -1,6 +1,6 @@
 """Weight-normalization primitives for SMC.
 
-TPU-native replacement for the inline weight arithmetic of the reference's
+Vectorized replacement for the inline weight arithmetic of the reference's
 filter core (/root/reference/R/particle_filter_core.R:204-212): max-shifted
 log-sum-exp normalization, per-step marginal-likelihood increments, and the
 inverse-sum-of-squares effective sample size. Everything is pure, branchless

@@ -29,6 +29,10 @@ class PMMHOutput:
       acceptance_rate: [num_chains] main-chain MH acceptance rates.
       target_n: [num_chains] tuned particle counts (reference Q9).
       seed: the seed/key data the run derived its randomness from.
+      timings: wall-clock seconds per phase (tuning, compile, sampling).
+      chunk_memory: byte counts of the compiled sampling-chunk program
+        (``memory_analysis()`` of the longest chunk): arguments, outputs,
+        temporaries and generated code.
     """
 
     theta_chain: Dict[str, np.ndarray]
@@ -38,6 +42,7 @@ class PMMHOutput:
     target_n: Optional[np.ndarray] = None
     seed: Optional[int] = None
     timings: Optional[Dict[str, float]] = None
+    chunk_memory: Optional[Dict[str, int]] = None
 
     @property
     def param_names(self):

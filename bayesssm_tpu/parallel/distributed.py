@@ -1,14 +1,14 @@
 """Multi-host initialization helpers.
 
 The reference is strictly single-machine (SURVEY.md §2); this module is the
-entry point for running PMMH across a multi-host TPU slice: call
+entry point for running PMMH across several hosts: call
 ``initialize()`` once per host process, then build the global mesh with
-``global_chain_mesh()`` — chains shard across hosts over DCN and across
-chips over ICI, with no communication in the sampling hot loop and
+``global_chain_mesh()`` — chains shard across hosts and across the
+cards of each host, with no communication in the sampling hot loop and
 collectives only at the diagnostics boundary (exactly the reference's
 process model, lifted to SPMD).
 
-Not exercisable in the single-chip test environment; the sharding logic it
+Not exercised by the single-process tests; the sharding logic it
 feeds (parallel/mesh.py, parallel/sharded.py) is validated on the virtual
 8-device CPU mesh instead.
 """

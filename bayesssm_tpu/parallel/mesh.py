@@ -1,7 +1,7 @@
 """Device-mesh helpers for chain-parallel PMMH.
 
 The reference's only parallelism is one OS process per MCMC chain
-(/root/reference/R/pmmh.R:512-531, `future_lapply`). The TPU-native
+(/root/reference/R/pmmh.R:512-531, `future_lapply`). The SPMD
 equivalent: chains are the leading axis of every per-chain array, and that
 axis is sharded over a ``jax.sharding.Mesh`` axis named ``"chains"`` —
 no communication during sampling, collectives only at the diagnostics
@@ -30,7 +30,7 @@ __all__ = [
 class MeshConfig:
     """Typed mesh configuration (SURVEY.md §5 config row).
 
-    Captures the device-layout choices for a PMMH run — the TPU-native
+    Captures the device-layout choices for a PMMH run — the SPMD
     analogue of the reference's single ``num_cores`` argument
     (/root/reference/R/pmmh.R:253) generalized to a 2-D
     ``(chains, particles)`` mesh. ``build()`` materializes the

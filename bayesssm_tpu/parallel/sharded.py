@@ -117,7 +117,6 @@ def sharded_particle_filter(
                 threshold=threshold,
                 return_particles=False,
                 carry_weights=carry_weights,
-                use_fused=False,
                 particle_axis="particles",
                 particle_axis_size=ps,
             )

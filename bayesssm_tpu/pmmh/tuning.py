@@ -105,6 +105,21 @@ def default_tune_control(
     )
 
 
+def _particle_lane_bound(max_n: int) -> int:
+    """Static particle-lane bound: the next power of two >= ``max_n``.
+
+    The whole-sweep kernel (ops/sweep_builder.py) spans its particles
+    with one Triton block, and Triton block shapes are powers of two.
+    Masked lanes keep each chain at its own tuned target_n (Q9), so the
+    padding is statistically invisible; the plain engine pays for the
+    masked lanes (at most 2x the tuned count).
+    """
+    bound = 1
+    while bound < max_n:
+        bound *= 2
+    return bound
+
+
 def _make_pf_loglike(
     y,
     num_particles,
@@ -203,16 +218,16 @@ def run_pilot_chain(
     pilot_loglike_chain [pilot_m], and variance_estimate.
 
     ``pf_impl`` optionally replaces ``_make_pf_loglike`` (same signature)
-    with a custom filter evaluator — e.g. a model-fused Pallas sweep.
+    with a custom filter evaluator — e.g. a whole-sweep Pallas kernel.
     """
     p = len(param_names)
     init_theta = jnp.asarray(init_theta)
     proposal_sd = jnp.broadcast_to(
         jnp.asarray(control.pilot_proposal_sd, dtype=init_theta.dtype), (p,)
     )
-    # Pad the pilot filter's lane count to a multiple of 128 (masked lanes
+    # Pad the pilot filter's lane count to a power of two (masked lanes
     # keep the effective particle count at exactly pilot_n) so the pilot
-    # chain also rides the fused TPU kernel.
+    # chain also runs on a whole-sweep pf_impl.
     pf = (pf_impl or _make_pf_loglike)(
         y,
         control.pilot_n,
@@ -223,7 +238,7 @@ def run_pilot_chain(
         control.pilot_resample_algorithm,
         control.pilot_resample_fn,
         carry_weights,
-        max_particles=((control.pilot_n + 127) // 128) * 128,
+        max_particles=_particle_lane_bound(control.pilot_n),
     )
 
     key, k0 = jax.random.split(key)

@@ -13,7 +13,7 @@ small bundle of pure JAX functions with explicit PRNG keys:
 
 Functions declare only the arguments they use (signature adaptation mirrors
 the reference's formals injection, see utils/signatures.py). ``move_fn`` is
-vectorized over all particles at once — the TPU-native fix of the
+vectorized over all particles at once — the vectorized fix of the
 reference's per-particle loop (/root/reference/R/particle_filter_core.R:228-233).
 """
 

@@ -1,8 +1,8 @@
 // Host-side native resampling kernels.
 //
-// TPU-native framework analogue of the reference's Rcpp layer
-// (/root/reference/src/resampling.cpp): the device path runs the fused
-// Pallas/XLA resamplers; this C++ library serves host-side tooling
+// This framework's analogue of the reference's Rcpp layer
+// (/root/reference/src/resampling.cpp): the device path runs the XLA
+// resamplers and the whole-sweep kernel; this C++ library serves host-side tooling
 // (NumPy pre/post-processing, the single-core baseline, CPU fallbacks)
 // without an R/Rcpp dependency.
 //

@@ -1,28 +1,27 @@
 """Whole-sweep kernels for YOUR model: the sweep builder.
 
 The fastest path in this framework runs the ENTIRE particle filter in
-one TPU kernel (486.9k PMMH samples/s on the SIR benchmark vs 402.2k
-for the two-kernel per-day path). `ops/sweep_builder.py` makes that
-available for any model with [B, N] float state columns: write three
-small callbacks (they trace INTO the kernel, so use jnp elementwise ops
-only) and get a `pf_impl` for `pmmh`.
+one Pallas kernel compiled through Triton for an NVIDIA GPU.
+`ops/sweep_builder.py` makes that available for any model with [B, N]
+float state columns: write three small callbacks (they trace INTO the
+kernel, so use jnp elementwise ops only) and get a `pf_impl` for `pmmh`.
 
 Here: the stochastic-volatility model (models/stochastic_volatility.py),
 which has no bespoke kernel.
 
-Run: python examples/custom_sweep_kernel.py
-(CPU-safe: the example forces interpret mode off-TPU. The chain is kept
-demo-short — expect the printed Rhat warning; SV posteriors need longer
-series and chains than a minutes-long example affords.)
+Run on a machine with an NVIDIA GPU: python examples/custom_sweep_kernel.py
+(The chain is kept demo-short — expect the printed Rhat warning; SV
+posteriors need longer series and chains than a minutes-long example
+affords. The same callbacks run on the CPU under the Pallas interpreter
+with ``interpret=True``, which is how tests/test_sweep_builder.py checks
+them.)
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from bayesssm_tpu import default_tune_control, pmmh
 from bayesssm_tpu.models.stochastic_volatility import simulate_sv, sv_model
-from bayesssm_tpu.ops.resampling_pallas import pallas_available
 from bayesssm_tpu.ops.sweep_builder import build_sweep_pf_impl
 
 HALF_LOG_2PI = 0.5 * np.log(2.0 * np.pi)
@@ -58,10 +57,9 @@ def main():
         transition_fn=sv_transition,
         log_weight_fn=sv_log_weight,
         param_names=("phi", "sigma", "mu"),
-        interpret=not pallas_available(),
     )
 
-    # The driver still wants the portable model functions for signature
+    # The driver still wants the plain model functions for signature
     # validation (and they remain the reference implementation the
     # kernel is tested against).
     (init_fn, trans_fn, loglik_fn), log_priors, transform = sv_model()

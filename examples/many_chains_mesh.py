@@ -1,13 +1,13 @@
 """Scale-out example: thousands of chains on a device mesh.
 
 Runs PMMH with the chains axis sharded over all available devices, and
-demonstrates the particle-sharded distributed filter. On a multi-chip TPU
-slice this is the production layout (chains over ICI, no communication in
-the sampling hot loop); on CPU it runs on virtual devices via
+demonstrates the particle-sharded distributed filter. On a host with
+several GPUs this is the production layout (no communication in the
+sampling hot loop); on CPU it runs on virtual devices via
 XLA_FLAGS=--xla_force_host_platform_device_count=8.
 
 Run: python examples/many_chains_mesh.py
-Scale-out guidance: docs/performance.md section 6; docs/guide.md section 5.
+Scale-out guidance: docs/guide.md section 5.
 """
 
 import jax

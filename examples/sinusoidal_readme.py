@@ -7,7 +7,8 @@ posterior with a bootstrap-filter PMMH (2 chains, pilot-tuned).
 Run: python examples/sinusoidal_readme.py [--fused]
 ``--fused`` routes BOTH PMMH phases through the model's whole-sweep
 builder instance (`sinusoidal_sweep_pf_impl`) — the entire filter in
-one TPU kernel (interpret mode off-TPU); same posterior, fastest path.
+one Triton kernel, which needs an NVIDIA GPU; same posterior, fastest
+path.
 API overview: docs/guide.md; filter variants: docs/filters.md.
 """
 
@@ -28,14 +29,7 @@ def main():
     )
     _, y = simulate_sinusoidal(seed=1405, t_val=20)
 
-    if "--fused" in sys.argv:
-        from bayesssm_tpu.ops.resampling_pallas import pallas_available
-
-        pf_impl = sinusoidal_sweep_pf_impl(
-            interpret=not pallas_available()
-        )
-    else:
-        pf_impl = None
+    pf_impl = sinusoidal_sweep_pf_impl() if "--fused" in sys.argv else None
 
     result = pmmh(
         "bootstrap_filter",

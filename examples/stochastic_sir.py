@@ -7,8 +7,8 @@ vectorized Gillespie simulation running on device.
 
 Run: python examples/stochastic_sir.py
 Narrative walkthrough with measured posteriors: docs/sir_walkthrough.md;
-simulator trade-offs (gillespie vs gillespie_pallas vs tauleap):
-docs/performance.md.
+simulator trade-offs (exact gillespie vs approximate tauleap, and the
+whole-sweep kernel): docs/performance.md.
 """
 
 from bayesssm_tpu.models.sir import simulate_sir, sir_model

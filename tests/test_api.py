@@ -55,7 +55,6 @@ def test_filter_config_and_mesh_config():
         log_likelihood_fn,
         config=bayesssm_tpu.FilterConfig(
             resample_algorithm="SISR", return_particles=False,
-            use_fused=False,
         ),
     )
     assert res.particles_history is None

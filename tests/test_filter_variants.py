@@ -121,24 +121,22 @@ def test_apf_uses_lookahead_weights():
 def test_apf_degenerate_aux_weights_give_neg_inf():
     """Degenerate AUX weights kill the chain like degenerate main weights.
 
-    Guards the fused path's -1e30 clamp: without the aux-degeneracy dead
-    flag the clamp cancels in ``lw - aux_anc`` and a dead proposal
-    surfaces a spuriously huge log-likelihood (round-4 fix in
-    filters/core.py). The reference's sample() would error on all-zero
-    auxiliary probabilities; the repo maps it to the -inf contract."""
+    Without the aux-degeneracy dead flag a clamp of the aux weights would
+    cancel in ``lw - aux_anc`` and a dead proposal would surface a
+    spuriously huge log-likelihood. The reference's sample() would error
+    on all-zero auxiliary probabilities; the repo maps it to the -inf
+    contract."""
     _, y = simulate_drift(3, T=8)
 
     def bad_aux_fn(y, particles, mu, sigma):
         return jnp.full(particles.shape[0], -1.0e12)
 
-    for use_fused in (False, "interpret-inkernel"):
-        res = auxiliary_filter(
-            jax.random.key(5), y, 128, init_fn, transition_fn, loglik_fn,
-            bad_aux_fn, theta=THETA, return_particles=False,
-            use_fused=use_fused,
-        )
-        ll = float(res.loglike)
-        assert np.isinf(ll) and ll < 0, (use_fused, ll)
+    res = auxiliary_filter(
+        jax.random.key(5), y, 128, init_fn, transition_fn, loglik_fn,
+        bad_aux_fn, theta=THETA, return_particles=False,
+    )
+    ll = float(res.loglike)
+    assert np.isinf(ll) and ll < 0, ll
 
 
 def single_particle_move_fn(key, particle, y, sigma):

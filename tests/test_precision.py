@@ -1,6 +1,6 @@
 """Numerical-precision validation (SURVEY.md §7 hard parts).
 
-* f32 vs f64: the reference is double-precision R; the TPU engine runs
+* f32 vs f64: the reference is double-precision R; the engine runs
   float32 with max-shifted log-weight arithmetic. A subprocess with
   JAX_ENABLE_X64 runs the same filter in float64 and the f32 estimate must
   agree within MC-noise-scale tolerance.

@@ -257,7 +257,7 @@ def test_sharded_masked_particle_counts():
             ck, Y, jnp.asarray(384), INIT_FN, TRANSITION_FN, LOGLIK_FN,
             theta={"a": A, "sigma_x": SX, "sigma_y": SY},
             resample_algorithm="SISR", return_particles=False,
-            max_particles=512, use_fused=False,
+            max_particles=512,
             particle_axis="particles", particle_axis_size=4,
         )
         return res.loglike[None]

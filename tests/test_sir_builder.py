@@ -1,13 +1,11 @@
 """Builder-instance SIR whole sweep (models/sir.py::sir_builder_pf_impl).
 
-The round-5 consolidation target: the SAME fused SIR filter as the
-bespoke kernel (ops/sir_sweep_pallas.py), expressed through the generic
-sweep builder's callbacks — exact Gillespie day via the callback
+The SIR filter expressed through the generic sweep builder's callbacks
+(ops/sir_sweep_pallas.py) — exact Gillespie day via the callback
 while_loop with explicit RNG-counter threading, Poisson weights with a
 precomputed ``lgamma(y+1)`` observation column, packed (S, I)
-selection. Validated distributionally against BOTH the portable engine
-and the bespoke sweep in interpret mode; the benchmark-shape timing
-comparison lives in scripts/bench_sir_builder.py / BENCH_CONFIGS.
+selection. Validated distributionally against the plain engine in
+interpret mode; chip_smoke.py compares it compiled at real widths.
 """
 
 import jax

@@ -1,10 +1,10 @@
-"""Fused whole-sweep SIR kernel (ops/sir_sweep_pallas.py), interpret mode.
+"""Whole-sweep SIR kernel (ops/sir_sweep_pallas.py), interpret mode.
 
 The sweep kernel must sample from the same distribution as the generic
 engine (filters/core.py) running the SIR model with fresh-weight SISAR —
 the reference BPF semantics (/root/reference/R/particle_filter_core.R:
 123-246). Bit-streams differ (in-kernel PRNG vs threefry), so equivalence
-is distributional, mirroring how the per-day kernels are validated.
+is distributional.
 """
 
 import jax
@@ -141,10 +141,11 @@ def test_apf_rmpf_masked_lanes(ys):
 
 
 def test_merge_selection_matches_core(ys):
-    """selection='merge' (O(N log N) bitonic network) samples the same
-    distribution as the generic engine; masked lanes included."""
+    """The kernel's inverse-CDF selection (a binary search over the
+    CDF) samples the same distribution as the generic engine; masked
+    lanes included."""
     c = 192
-    ll_s, se_s = _sweep_batch(ys, c, key=31, selection="merge")
+    ll_s, se_s = _sweep_batch(ys, c, key=31)
     ll_c, se_c = _core_batch(ys, c, key=32)
     _assert_distributional_match(ll_s, se_s, ll_c, se_c, c)
 
@@ -153,7 +154,7 @@ def test_merge_selection_matches_core(ys):
     def one(k, n_alive):
         return sir_filter_sweep(
             k, ys, n_alive, LAM, GAM, N_TOTAL, I0, max_particles=N,
-            selection="merge", interpret=True,
+            interpret=True,
         )
 
     ll_m, _ = jax.jit(jax.vmap(one))(keys, jnp.full((c,), 64.0))
@@ -166,15 +167,19 @@ def test_merge_selection_matches_core(ys):
 
 
 def test_merge_selection_validation(ys):
+    """Selection searches sorted positions: multinomial (unsorted) draws
+    are refused by the entry point and by the pf_impl factory."""
     with pytest.raises(ValueError, match="sorted positions"):
         sir_filter_sweep(
             jax.random.key(0), ys, N, LAM, GAM, N_TOTAL, I0,
-            selection="merge", resample_fn="multinomial", interpret=True,
+            resample_fn="multinomial", interpret=True,
         )
-    with pytest.raises(ValueError, match="selection must be"):
-        sir_filter_sweep(
-            jax.random.key(0), ys, N, LAM, GAM, N_TOTAL, I0,
-            selection="bogus", interpret=True,
+    from bayesssm_tpu.models.sir import sir_sweep_pf_impl
+
+    with pytest.raises(ValueError, match="sorted positions"):
+        sir_sweep_pf_impl(N_TOTAL, I0, interpret=True)(
+            ys, N, ["lam", "gamma"], None, None, "BPF", "SISAR",
+            "multinomial", False,
         )
 
 
@@ -229,10 +234,9 @@ def test_resample_variants_run(ys):
     assert bool(jnp.isfinite(ll).all())
     ll, _ = _sweep_batch(ys, 8, key=9, resample_algorithm="SISR")
     assert bool(jnp.isfinite(ll).all())
-    # Multinomial has no sorted positions, hence no merge selection, and
-    # the whole-sweep path is merge-only since round 5 — it raises and
-    # points to the fused per-day path instead of silently degrading.
-    with pytest.raises(ValueError, match="per-day"):
+    # Multinomial has no sorted positions: the whole-sweep path raises
+    # and points to the plain engine instead of silently degrading.
+    with pytest.raises(ValueError, match="plain engine"):
         sir_filter_sweep(
             jax.random.key(0), ys, N, LAM, GAM, N_TOTAL, I0,
             resample_fn="multinomial", interpret=True,
